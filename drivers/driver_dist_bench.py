@@ -1,15 +1,15 @@
-"""DistributedModel parity bench (VERDICT r4 next #1b).
+"""DistributedModel parity bench.
 
 Times the flagship SUS benchmark THROUGH the DistributedModel wrapper on a
 real-device mesh — the same fused-loop methodology as the official bench
 (``driver_namelist_sus.py --fused-loop``: one jitted fori_loop, dead-field
-carry elision, scalar-probe completion).  On a ``1,1`` mesh the wrapper binds
-the components to the original domain (the exact single-device program inside
-a trivial shard_map), so the result must match ``bench.py`` to ~measurement
-noise; the acceptance bar is 2%.
+carry elision, ``block_until_ready`` completion).  On a ``1,1`` mesh the
+wrapper binds the components to the original domain (the exact single-device
+program inside a trivial shard_map), so the result must match ``bench.py`` to
+~measurement noise.
 
-Usage: ``python drivers/driver_dist_bench.py [--mesh 1,1] [--backend pallas]
-[--niter 100] [--nx N --nz N]``
+Usage: ``python drivers/driver_dist_bench.py [--mesh 1,1] [--niter 100]
+[--nx N --nz N]``
 """
 
 from __future__ import annotations
@@ -28,12 +28,11 @@ import numpy as np
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--mesh", type=str, default="1,1")
-    p.add_argument("--backend", type=str, default="pallas")
+    p.add_argument("--backend", type=str, default="jax")
     p.add_argument("--niter", type=int, default=100)
     p.add_argument("--nx", type=int, default=None)
     p.add_argument("--ny", type=int, default=None)
     p.add_argument("--nz", type=int, default=None)
-    p.add_argument("--halo", type=int, default=None)
     p.add_argument("--platform", type=str, default=None)
     p.add_argument("--virtual", type=int, default=None,
                    help="force N virtual CPU devices (testing)")
@@ -50,15 +49,18 @@ def main(argv=None):
 
     import jax
 
+    from tasmania_jax.utils.device import configure_compile_cache
+
+    configure_compile_cache()
     if cli.platform:
         jax.config.update("jax_platforms", cli.platform)
     import jax.numpy as jnp
 
     import drivers.namelist_sus as nl
     from drivers.driver_namelist_sus import build_domain_and_state, build_model
-    from tasmania_tpu.parallel import make_mesh
-    from tasmania_tpu.parallel.runner import DistributedModel
-    from tasmania_tpu.utils.jitx import carry_read_set
+    from tasmania_jax.parallel import make_mesh
+    from tasmania_jax.parallel.runner import DistributedModel
+    from tasmania_jax.utils.jitx import carry_read_set
 
     nl.backend = cli.backend
     if cli.nx:
@@ -71,12 +73,8 @@ def main(argv=None):
     mesh = make_mesh(jax.devices()[: px * py], shape=(px, py))
     domain, state, pt = build_domain_and_state(nl)
     dt_s = nl.timestep.total_seconds()
-    halo = cli.halo
-    if halo is None and cli.backend.startswith("pallas"):
-        halo = nl.nb + 1
     dm = DistributedModel(
-        domain, state, mesh, lambda dom: build_model(nl, dom, pt), dt_s,
-        halo=halo,
+        domain, state, mesh, lambda dom: build_model(nl, dom, pt), dt_s
     )
     print(f"mesh {px}x{py}  degenerate={dm.degenerate}  pads={dm._pads}")
 
@@ -99,7 +97,7 @@ def main(argv=None):
     # wrapper shows up as one jaxpr equation consuming every operand, so
     # carry_read_set would conservatively report 17/17.  A single-device model
     # with the same config reads exactly the same field names.
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.framework.field import FieldArray
 
     sd_dycore, sd_physics = build_model(nl, domain, pt)
     units = {k: state[k].units for k in dm._names}
@@ -133,18 +131,15 @@ def main(argv=None):
         return jax.lax.fori_loop(0, n, body, carry)
 
     run_all_c = jax.jit(run_all, donate_argnums=(0,))
-    probe = jax.jit(lambda f: sum(jnp.sum(v) for v in f.values()))
     carry0 = {k: v for k, v in fields.items() if k in read}
 
     t0 = time.perf_counter()
-    out = run_all_c(dict(carry0), hs_steady * 0.0, 1)
-    float(probe(out))
+    out = jax.block_until_ready(run_all_c(dict(carry0), hs_steady * 0.0, 1))
     print(f"compile+warmup: {time.perf_counter() - t0:.1f} s", flush=True)
     carry0 = {k: out[k] for k in carry0}
 
     t0 = time.perf_counter()
-    out = run_all_c(dict(carry0), hs_steady, nt)
-    float(probe(out))
+    out = jax.block_until_ready(run_all_c(dict(carry0), hs_steady, nt))
     elapsed = time.perf_counter() - t0
 
     # u lives cell-anchored unless degenerate; either way max over faces < last

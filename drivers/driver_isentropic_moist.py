@@ -1,6 +1,6 @@
 """Unified moist isentropic benchmark driver — all six coupling variants.
 
-TPU-native re-design of reference
+JAX re-design of reference
 ``drivers/benchmarking/isentropic_moist/driver_namelist_{fc,lfc,ps,sts,sus,ssus}.py``:
 
 * ``fc``   — full concurrent coupling: physics as the dycore's fast tendency
@@ -35,7 +35,7 @@ import numpy as np
 
 def build_components(nl, domain, pt, common):
     """All physics components used across the variants."""
-    from tasmania_tpu.isentropic.physics import (
+    from tasmania_jax.isentropic.physics import (
         IsentropicConservativeCoriolis,
         IsentropicDiagnostics,
         IsentropicHorizontalSmoothing,
@@ -43,11 +43,11 @@ def build_components(nl, domain, pt, common):
         IsentropicVelocityComponents,
         IsentropicVerticalAdvection,
     )
-    from tasmania_tpu.isentropic.utils import (
+    from tasmania_jax.isentropic.utils import (
         AirPotentialTemperatureToDiagnostic,
         AirPotentialTemperatureToTendency,
     )
-    from tasmania_tpu.physics import (
+    from tasmania_jax.physics import (
         KesslerFallVelocity,
         KesslerMicrophysics,
         KesslerSaturationAdjustmentPrognostic,
@@ -82,7 +82,6 @@ def build_components(nl, domain, pt, common):
         domain,
         "numerical",
         sedimentation_flux_scheme=nl.sedimentation_flux_scheme,
-        vt_mode=getattr(nl, "sedimentation_vt_mode", "stage"),
         **common,
     )
     c["ap"] = Precipitation(domain, "numerical", **common)
@@ -109,16 +108,16 @@ def build_variant(nl, coupling: str):
     import jax.numpy as jnp
 
     from drivers.driver_namelist_sus import build as build_sus
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.framework import ConcurrentCoupling, TimeIntegrationOptions
-    from tasmania_tpu.framework.dict_operator import DictOperator
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.framework.splitting import (
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.framework import ConcurrentCoupling, TimeIntegrationOptions
+    from tasmania_jax.framework.dict_operator import DictOperator
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.framework.splitting import (
         ParallelSplitting,
         SequentialTendencySplitting,
         SequentialUpdateSplitting,
     )
-    from tasmania_tpu.isentropic import (
+    from tasmania_jax.isentropic import (
         IsentropicDynamicalCore,
         get_isentropic_state_from_brunt_vaisala_frequency,
     )
@@ -294,6 +293,9 @@ def main(argv=None):
 
     import jax
 
+    from tasmania_jax.utils.device import configure_compile_cache
+
+    configure_compile_cache()
     if cli.platform:
         jax.config.update("jax_platforms", cli.platform)
     import jax.numpy as jnp
@@ -304,7 +306,7 @@ def main(argv=None):
     # namelist_{fc,lfc,ps,sts,sus,ssus}.py; see the per-variant modules for
     # the verified constant parity)
     nl = importlib.import_module(f"drivers.namelist_{cli.coupling}")
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.framework.field import FieldArray
 
     if cli.nx:
         nl.nx = cli.nx
@@ -338,19 +340,20 @@ def main(argv=None):
         return {k: st[k].data for k in field_names}
 
     step_c = jax.jit(step, donate_argnums=(0,))
-    probe = jax.jit(lambda f: jnp.sum(f["air_isentropic_density"]))
-    fields = {k: state[k].data for k in field_names}
+    # copy: the initial arrays are shared with hb.reference_state, and step_c
+    # donates its inputs
+    fields = {k: jnp.array(state[k].data) for k in field_names}
 
     t0 = time.perf_counter()
-    fields = step_c(dict(fields), hs_steady * 0.0)
-    float(probe(fields))
-    print(f"[{cli.coupling}] compile+warmup: {time.perf_counter() - t0:.1f} s", flush=True)
+    fields = jax.block_until_ready(step_c(dict(fields), hs_steady * 0.0))
+    compile_s = time.perf_counter() - t0
+    print(f"[{cli.coupling}] compile+warmup: {compile_s:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     for i in range(nt):
         fact = min((i + 1) * dt_s / topo_time, 1.0)
         fields = step_c(dict(fields), fact * hs_steady)
-    float(probe(fields))
+    jax.block_until_ready(fields)
     elapsed = time.perf_counter() - t0
 
     print("Simulation successfully completed. HOORAY!")
@@ -361,7 +364,10 @@ def main(argv=None):
     print(f"Validation: umax = {umax:.5f}, vmax = {vmax:.5f}")
     print(f"Compute time: {elapsed:.3f} s.")
     print(f"Throughput: {gps:.3e} gridpoints/s")
-    return {"umax": float(umax), "vmax": float(vmax), "elapsed": elapsed, "gps": gps}
+    return {
+        "umax": float(umax), "vmax": float(vmax), "elapsed": elapsed, "gps": gps,
+        "compile_s": compile_s,
+    }
 
 
 if __name__ == "__main__":

@@ -35,16 +35,16 @@ def run_case(nx: int, nz: int, hours: float, dt_s: float,
 
     from datetime import timedelta
 
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.isentropic import (
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.isentropic import (
         IsentropicDynamicalCore,
         get_isentropic_state_from_brunt_vaisala_frequency,
     )
-    from tasmania_tpu.isentropic.dynamics.diagnostics import (
+    from tasmania_jax.isentropic.dynamics.diagnostics import (
         IsentropicDiagnostics as DynDiag,
     )
-    from tasmania_tpu.utils.meteo import get_isothermal_isentropic_analytical_solution
+    from tasmania_jax.utils.meteo import get_isothermal_isentropic_analytical_solution
 
     T0, cp, g0 = 300.0, 1004.0, 9.80665
     N = g0 / np.sqrt(cp * T0)
@@ -226,9 +226,12 @@ def main(argv=None):
     ap.add_argument("--growth-hours", type=float, default=0.0,
                     help="grow the mountain linearly over this many hours")
     cli = ap.parse_args(argv)
-    if cli.platform:
-        import jax
+    import jax
 
+    from tasmania_jax.utils.device import configure_compile_cache
+
+    configure_compile_cache()
+    if cli.platform:
         jax.config.update("jax_platforms", cli.platform)
 
     if cli.diagnose:

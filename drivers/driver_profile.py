@@ -1,9 +1,7 @@
-"""Leave-one-out profiler for the flagship SUS benchmark (pallas backend).
+"""Leave-one-out profiler for the flagship SUS benchmark.
 
 Times the fused-loop benchmark with individual physics processes (or the
-whole dycore / whole physics chain) removed, to attribute the per-step cost
-at the *pallas* backend (the r1 attribution in BENCH_NOTES.json was taken on
-the jax backend before the kernel wave; this re-measures on today's hot path).
+whole dycore / whole physics chain) removed, to attribute the per-step cost.
 
 Usage: ``python drivers/driver_profile.py [--variants full,dycore_only,...]``
 Prints one line per variant: ``variant  ms/step  (delta vs full)``.
@@ -40,10 +38,6 @@ VARIANTS = {
     "no_velocities": ({"velocities"}, {}),
     "no_pointwise": ({"kessler", "satadj", "precipitation", "coriolis"}, {}),
     "no_damp": (set(), {"damp": False}),
-    # env-driven probes (r4 residue itemization):
-    "derive_uv_off": (set(), {"env": {"TASMANIA_DERIVE_UV": "0"}}),
-    "two_kernel_stage": (set(), {"env": {"TASMANIA_FUSE_STAGE": "1"}}),
-    "skip_xband_TIMING_ONLY": (set(), {"env": {"TASMANIA_SKIP_XBAND": "1"}}),
 }
 
 
@@ -57,18 +51,12 @@ def run_variant(name, skip, kwargs, nt, backend):
     importlib.reload(nl)
 
     from drivers.driver_namelist_sus import build_domain_and_state, build_model
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.utils.jitx import carry_read_set
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.utils.jitx import carry_read_set
 
     nl.backend = backend
     if "damp" in kwargs:
         nl.damp = kwargs["damp"]
-    import os
-
-    envs = kwargs.get("env", {})
-    prior_env = {k: os.environ.get(k) for k in envs}
-    for k, v in envs.items():
-        os.environ[k] = v
 
     domain, state, pt = build_domain_and_state(nl)
     dycore, physics = build_model(nl, domain, pt, skip=skip)
@@ -106,24 +94,14 @@ def run_variant(name, skip, kwargs, nt, backend):
         return jax.lax.fori_loop(0, n, body, carry)
 
     run_all_c = jax.jit(run_all, donate_argnums=(0,))
-    probe = jax.jit(lambda f: sum(jnp.sum(v) for v in f.values()))
     carry0 = {k: v for k, v in fields.items() if k in read}
 
-    out = run_all_c(dict(carry0), hs_steady * 0.0, 1)
-    float(probe(out))
+    out = jax.block_until_ready(run_all_c(dict(carry0), hs_steady * 0.0, 1))
     carry0 = {k: out[k] for k in carry0}
 
     t0 = time.perf_counter()
-    out = run_all_c(dict(carry0), hs_steady, nt)
-    float(probe(out))
+    jax.block_until_ready(run_all_c(dict(carry0), hs_steady, nt))
     elapsed = time.perf_counter() - t0
-    # restore the PRIOR values (ADVICE r4: a plain pop clobbered any value
-    # the user had exported for the whole session)
-    for k, old in prior_env.items():
-        if old is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = old
     return elapsed / nt * 1e3  # ms/step
 
 
@@ -131,8 +109,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", type=str, default=",".join(VARIANTS))
     ap.add_argument("--niter", type=int, default=100)
-    ap.add_argument("--backend", type=str, default="pallas")
+    ap.add_argument("--backend", type=str, default="jax")
     cli = ap.parse_args()
+
+    from tasmania_jax.utils.device import configure_compile_cache, require_gpu
+
+    configure_compile_cache()
+    require_gpu()
 
     results = {}
     for name in cli.variants.split(","):

@@ -9,8 +9,8 @@ from datetime import datetime, timedelta
 
 import numpy as np
 
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.framework.options import BackendOptions, StorageOptions
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.framework.options import BackendOptions, StorageOptions
 
 # computational domain (reference namelist_sus.py:34-40)
 domain_x = (-176e3, 176e3)
@@ -86,13 +86,6 @@ coriolis_parameter = None
 # microphysics (reference :124-133)
 sedimentation = True
 sedimentation_flux_scheme = "second_order_upwind"
-# fused-chain option (r5, VERDICT r4 next #2): evaluate the qr^0.1346
-# fall-velocity power once per RK3WS step instead of per stage — the
-# sedimentation kernel's dominant compute cost.  Validation unchanged
-# (umax/vmax exact at all printed digits); field-level error budget in
-# BENCH_NOTES.json r5_sed_vt_step.  "stage" restores the reference's
-# per-stage evaluation (kessler.py:1198).
-sedimentation_vt_mode = "step"
 rain_evaporation = True
 autoconversion_threshold = FieldArray(np.asarray(0.1), "g kg^-1", ())
 autoconversion_rate = FieldArray(np.asarray(0.001), "s^-1", ())

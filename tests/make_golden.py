@@ -13,8 +13,7 @@ justified as an intentional numerics change:
     JAX_PLATFORMS=cpu python tests/make_golden.py
 
 With ``--drift`` it additionally measures float32-vs-float64 trajectory
-divergence over 100 steps at this configuration (the number that backs the
-f32 benchmark headline; recorded in BENCH_NOTES.json).
+divergence over 100 steps at this configuration.
 """
 
 import argparse
@@ -43,26 +42,17 @@ def run(dtype, nsteps):
     import jax.numpy as jnp
 
     import drivers.namelist_sus as nl
-    from drivers.driver_namelist_sus import build
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.framework.options import StorageOptions
+    from drivers.driver_namelist_sus import make_step, mountain_fraction
+    from tasmania_jax.framework.options import StorageOptions
 
     importlib.reload(nl)
     nl.nx, nl.ny, nl.nz = NX, NY, NZ
     nl.so = StorageOptions(dtype=dtype)
 
-    domain, dycore, physics, state = build(nl)
-    dt_s = nl.timestep.total_seconds()
+    domain, state, step = make_step(nl)
     names = sorted(k for k in state if k != "time")
     units = {k: state[k].units for k in names}
     dims = {k: state[k].dims for k in names}
-
-    def step(fields, hs):
-        st = {k: FieldArray(v, units[k], dims[k]) for k, v in fields.items()}
-        st["topography_height"] = FieldArray(hs, "m", ("x", "y"))
-        st = dycore(st, {}, dt_s)
-        st = physics(st, dt_s)
-        return {k: st[k].data for k in names}
 
     step_c = jax.jit(step)
     hs = jnp.asarray(
@@ -71,12 +61,10 @@ def run(dtype, nsteps):
         ),
         dtype=dtype,
     )
-    topo_time = nl.topo_kwargs["time"].total_seconds()
     fields = {k: jnp.asarray(state[k].data) for k in names}
     snaps = {}
     for i in range(nsteps):
-        fact = min((i + 1) * dt_s / topo_time, 1.0)
-        fields = step_c(dict(fields), fact * hs)
+        fields = step_c(dict(fields), mountain_fraction(nl, i + 1) * hs)
         if (i + 1) % SNAP_EVERY == 0:
             snaps[i + 1] = {k: np.asarray(v) for k, v in fields.items()}
     return domain, state, snaps, units, dims
@@ -85,8 +73,8 @@ def run(dtype, nsteps):
 def write_golden():
     from datetime import timedelta
 
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.utils.iox import HDF5Monitor
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.utils.iox import HDF5Monitor
 
     domain, state, snaps, units, dims = run(np.float64, NSTEPS)
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)

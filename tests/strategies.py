@@ -1,7 +1,7 @@
 """Hypothesis strategy library: random domains, grids, boundaries, fields and
 model states.
 
-TPU-native counterpart of the reference's strategy library
+JAX counterpart of the reference's strategy library
 (reference ``tests/strategies.py:347,459,487,569,1169,1637`` — ``st_physical_grid``,
 ``st_horizontal_boundary``, ``st_domain``, ``st_raw_field``,
 ``st_isentropic_state_f``, ``st_burgers_state``): the same capability — every
@@ -21,11 +21,11 @@ from hypothesis import strategies as hyp_st
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray, field_shape
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray, field_shape
 
 #: backends every backend-parameterized suite runs over (the reference's
-#: numpy/gt4py axis becomes numpy-oracle vs jax vs pallas-interpret)
+#: numpy/gt4py axis becomes numpy-oracle vs jax)
 BACKENDS = ("numpy", "jax")
 
 
@@ -146,7 +146,7 @@ def st_isentropic_state(
     background flow and humidity (reference ``st_isentropic_state_f``,
     ``tests/strategies.py:1169``) — built through the production state factory
     so hydrostatic/velocity consistency holds by construction."""
-    from tasmania_tpu.isentropic import (
+    from tasmania_jax.isentropic import (
         get_isentropic_state_from_brunt_vaisala_frequency,
     )
 
@@ -187,7 +187,7 @@ def st_timedelta(draw, lo: float = 0.1, hi: float = 120.0) -> timedelta:
 def st_horizontal_boundary(draw, grid, types=("identity", "periodic", "relaxed")):
     """A boundary over an existing physical grid (reference
     ``st_horizontal_boundary``, ``tests/strategies.py:459``)."""
-    from tasmania_tpu.domain.horizontal_boundary import HorizontalBoundary
+    from tasmania_jax.domain.horizontal_boundary import HorizontalBoundary
 
     hb_type = draw(hyp_st.sampled_from(types))
     nb_hi = max(1, min(3, grid.nx // 2 - 1, grid.ny // 2 - 1))
@@ -232,7 +232,7 @@ def st_staggered_field(
 ):
     """(name, FieldArray) at a drawn staggering on ``grid`` — the staggered
     raw-field axis of the reference's ``st_raw_field``."""
-    from tasmania_tpu.framework.field import field_dims, field_shape
+    from tasmania_jax.framework.field import field_dims, field_shape
 
     name = draw(st_staggered_field_name(base))
     shape = field_shape(name, (grid.nx, grid.ny, grid.nz))
@@ -253,7 +253,7 @@ def st_out_buffers(
     field pre-filled with junk in a drawn range (so stale values are visible if
     a component fails to overwrite), plus an unrelated sentinel entry whose
     survival checks the merge semantics."""
-    from tasmania_tpu.framework.field import field_dims, field_shape
+    from tasmania_jax.framework.field import field_dims, field_shape
 
     junk_lo = draw(hyp_st.floats(-1e6, -1e3))
     out = {}
@@ -311,7 +311,7 @@ def st_vertical_coordinate_grid(
     """A terrain-following metric grid with a drawn vertical coordinate
     (reference ``domain/subclasses/grids/{sigma,sleve,gal_chen}.py``) over a
     drawn mountain."""
-    from tasmania_tpu.domain.grids.vertical_coordinates import (
+    from tasmania_jax.domain.grids.vertical_coordinates import (
         GalChen3d,
         Sigma3d,
         SLEVE3d,
@@ -363,7 +363,7 @@ def st_field_properties(
 ):
     """A random component property dict: field names (optionally staggered),
     units drawn from a conversion-rich pool."""
-    from tasmania_tpu.framework.field import field_dims
+    from tasmania_jax.framework.field import field_dims
 
     n = draw(hyp_st.integers(*n_range))
     picks = draw(
@@ -393,7 +393,7 @@ def st_linear_tendency_components(
     """N TendencyComponents, each contributing ``a_i * phi`` (coefficients
     drawn), sharing one prognostic field — the algebra the coupler laws
     (tendency summation, serial-vs-parallel policies) quantify over."""
-    from tasmania_tpu.framework import TendencyComponent
+    from tasmania_jax.framework import TendencyComponent
 
     class Linear(TendencyComponent):
         def __init__(self, dom, a, **kw):

@@ -1,12 +1,12 @@
 """Reusable component / stepper test harnesses.
 
-TPU-native re-design of reference ``tests/suites/{domain,component,steppers}.py``
+JAX re-design of reference ``tests/suites/{domain,component,steppers}.py``
 (SURVEY.md §4): compose a random domain + state, run a component (or a
 stepper wrapping one), and validate against a numpy re-derivation supplied by
 the concrete suite.  Mirrors the reference apparatus's axes:
 
-* backend parametrization (numpy oracle vs jax arrays vs pallas-interpret
-  where a kernel exists) — reference ``tests/conf.py:31-95``;
+* backend parametrization (numpy oracle vs jax arrays) — reference
+  ``tests/conf.py:31-95``;
 * staggered-field states (shape inferred from ``at_u_locations`` etc. name
   conventions) — reference ``tests/strategies.py:569``;
 * out-buffer calls (components accept pre-allocated ``out=`` dicts) —
@@ -25,8 +25,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray, field_shape
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray, field_shape
 
 #: the backend sweep every parameterized suite runs over
 BACKENDS = ("numpy", "jax")
@@ -316,12 +316,12 @@ class SequentialTendencyStepperTestSuite(TendencyStepperTestSuite):
 
 
 def TendencyStepperFactory(scheme, component, **kwargs):
-    from tasmania_tpu.framework import TendencyStepper
+    from tasmania_jax.framework import TendencyStepper
 
     return TendencyStepper.factory(scheme, component, **kwargs)
 
 
 def SequentialTendencyStepperFactory(scheme, component, **kwargs):
-    from tasmania_tpu.framework import SequentialTendencyStepper
+    from tasmania_jax.framework import SequentialTendencyStepper
 
     return SequentialTendencyStepper.factory(scheme, component, **kwargs)

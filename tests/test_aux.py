@@ -10,15 +10,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.framework.validation import assert_all_finite, checked
-from tasmania_tpu.utils.storage import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.framework.validation import assert_all_finite, checked
+from tasmania_jax.utils.storage import (
     deepcopy_state,
     get_numerical_state,
     get_physical_state,
 )
-from tasmania_tpu.utils.timer import Timer
+from tasmania_jax.utils.timer import Timer
 
 
 def make_domain():

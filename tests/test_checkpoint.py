@@ -1,7 +1,7 @@
 """Sharded checkpoint / resume (utils/checkpoint.py).
 
 The reference has no checkpoint/resume beyond host-side NetCDF snapshots
-(reference ``utils/iox.py:47,299``); this is the TPU-native sharded path of
+(reference ``utils/iox.py:47,299``); this is the sharded path of
 SURVEY.md §5.4.  Tested on the 8-virtual-device CPU mesh: per-shard save,
 same-topology restore, and elastic restore onto a different sharding.
 """
@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.utils.checkpoint import CheckpointManager
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.utils.checkpoint import CheckpointManager
 
 DIMS3 = ("x", "y", "z")
 
@@ -110,7 +110,7 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 assert len(jax.devices()) == 1
 import numpy as np
-from tasmania_tpu.utils.checkpoint import CheckpointManager
+from tasmania_jax.utils.checkpoint import CheckpointManager
 with CheckpointManager({ckdir!r}) as mgr:
     out = mgr.restore()
 arr = out["air_isentropic_density"].data

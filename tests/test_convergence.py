@@ -21,16 +21,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.burgers import (
+from tasmania_jax.burgers import (
     BurgersAdvection,
     BurgersDynamicalCore,
     BurgersHorizontalDiffusion,
     ZhaoSolutionFactory,
     ZhaoStateFactory,
 )
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic.dynamics.horizontal_fluxes import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic.dynamics.horizontal_fluxes import (
     IsentropicMinimalHorizontalFlux,
 )
 

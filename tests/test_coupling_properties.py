@@ -14,14 +14,14 @@ from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.concurrent_coupling import ConcurrentCoupling
-from tasmania_tpu.framework.core_components import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.concurrent_coupling import ConcurrentCoupling
+from tasmania_jax.framework.core_components import (
     DiagnosticComponent,
     TendencyComponent,
 )
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.utils.exceptions import PropertyError
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.utils.exceptions import PropertyError
 
 hyp_settings = settings(
     deadline=None,

@@ -24,7 +24,7 @@ def trajectories():
     import jax.numpy as jnp
 
     from drivers.driver_isentropic_moist import build_variant
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.framework.field import FieldArray
 
     results = {}
     for coupling in VARIANTS:

@@ -5,7 +5,7 @@ Round-2 replacement for the bespoke sharded step: the unmodified framework —
 SUS physics chain (Kessler, saturation adjustment, Coriolis, smoothing,
 Smagorinsky, vertical advection, sedimentation, precipitation) — runs
 distributed via ``DistributedBoundary`` + ``DistributedModel``
-(``tasmania_tpu/parallel/{distributed,runner}.py``), and the result is
+(``tasmania_jax/parallel/{distributed,runner}.py``), and the result is
 **bitwise identical** to the single-device run (the reference's
 ``enforce_*`` ghost-layer sites, ``horizontal_boundary.py:44``, realized as
 ppermute halo exchange; SURVEY.md §2.8/§5.8).
@@ -22,9 +22,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tasmania_tpu.framework.field import FieldArray, field_stagger_axes
-from tasmania_tpu.parallel import make_mesh
-from tasmania_tpu.parallel.runner import DistributedModel
+from tasmania_jax.framework.field import FieldArray, field_stagger_axes
+from tasmania_jax.parallel import make_mesh
+from tasmania_jax.parallel.runner import DistributedModel
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -42,7 +42,7 @@ def flagship():
     importlib.reload(nl)
     nl.nx = nl.ny = 16
     nl.nz = 8
-    from tasmania_tpu.framework.options import StorageOptions
+    from tasmania_jax.framework.options import StorageOptions
 
     nl.so = StorageOptions(dtype=np.float64)
 
@@ -145,8 +145,8 @@ def test_gather_assembles_staggered(flagship):
 
 
 def _dry_setup(hb_type, nx=16, ny=16, nz=6):
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.isentropic import (
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.isentropic import (
         IsentropicDynamicalCore,
         get_isentropic_state_from_brunt_vaisala_frequency,
     )
@@ -283,8 +283,8 @@ def test_dirichlet_core_distributed_bitwise():
     """Dry dycore under dirichlet BCs with a global-coordinate core: the
     distributed run (core evaluated host-side over global bands, windowed per
     shard) is bitwise equal to single-device."""
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.isentropic import (
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.isentropic import (
         IsentropicDynamicalCore,
         get_isentropic_state_from_brunt_vaisala_frequency,
     )
@@ -383,7 +383,7 @@ def test_dirichlet_time_dependent_core_raises():
 
 def test_one_dimensional_grid_raises():
     """1-D grids are single-device-only: construction fails loudly."""
-    from tasmania_tpu.domain import Domain
+    from tasmania_jax.domain import Domain
 
     domain = Domain(
         (0.0, 1e5),
@@ -395,8 +395,8 @@ def test_one_dimensional_grid_raises():
         horizontal_boundary_type="identity",
         nb=3,
     )
-    from tasmania_tpu.parallel.distributed import DistributedBoundary
-    from tasmania_tpu.parallel.mesh import CartesianDecomposition
+    from tasmania_jax.parallel.distributed import DistributedBoundary
+    from tasmania_jax.parallel.mesh import CartesianDecomposition
 
     # a 1-D extent also can't satisfy block >= nb; the boundary-level check
     # is reached with nb=0 in the decomposition

@@ -10,8 +10,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain, HorizontalBoundary, PhysicalGrid
-from tasmania_tpu.framework.field import FieldArray
+from tasmania_jax.domain import Domain, HorizontalBoundary, PhysicalGrid
+from tasmania_jax.framework.field import FieldArray
 
 
 def make_grid(nx=12, ny=10, nz=4, topo="flat", topo_kwargs=None):
@@ -271,7 +271,7 @@ def test_dirichlet_traced_time_core_under_jit():
     import jax
     import jax.numpy as jnp
 
-    from tasmania_tpu.domain.horizontal_boundary import HorizontalBoundary
+    from tasmania_jax.domain.horizontal_boundary import HorizontalBoundary
 
     def core(time, grid, slice_x=None, slice_y=None, field_name=None, field_units=None):
         sx = slice_x or slice(0, grid.nx)

@@ -22,7 +22,7 @@ def test_variant_runs(coupling, monkeypatch):
     monkeypatch.setattr(nl, "nz", 8)
 
     from drivers.driver_isentropic_moist import build_variant
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.framework.field import FieldArray
 
     import jax.numpy as jnp
 

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import PhysicalGrid
-from tasmania_tpu.dwarfs import (
+from tasmania_jax.domain import PhysicalGrid
+from tasmania_jax.dwarfs import (
     HorizontalDiffusion,
     HorizontalHyperDiffusion,
     HorizontalSmoothing,
@@ -15,7 +15,7 @@ from tasmania_tpu.dwarfs import (
     VerticalDamping,
     WaterConstituent,
 )
-from tasmania_tpu.framework.field import FieldArray
+from tasmania_jax.framework.field import FieldArray
 
 
 def rand(shape, seed=0):
@@ -208,7 +208,7 @@ class TestVelocityAndWater:
 # --------------------------------------------------------------------------- #
 
 from suites import BACKENDS, ComponentTestSuite, DomainSuite  # noqa: E402
-from tasmania_tpu.isentropic.physics import (  # noqa: E402
+from tasmania_jax.isentropic.physics import (  # noqa: E402
     IsentropicHorizontalDiffusion,
 )
 

@@ -13,8 +13,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework import (
     ConcurrentCoupling,
     DiagnosticComponent,
     FieldArray,

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 import make_golden
-from tasmania_tpu.utils.iox import load_hdf5_dataset
+from tasmania_jax.utils.iox import load_hdf5_dataset
 
 PROGNOSTICS = (
     "air_isentropic_density",

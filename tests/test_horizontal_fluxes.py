@@ -17,7 +17,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.isentropic.dynamics.horizontal_fluxes import (
+from tasmania_jax.isentropic.dynamics.horizontal_fluxes import (
     IsentropicHorizontalFlux,
     IsentropicMinimalHorizontalFlux,
 )

@@ -9,10 +9,10 @@ from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import HorizontalBoundary, PhysicalGrid
-from tasmania_tpu.dwarfs import HorizontalDiffusion, HorizontalSmoothing
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.framework.stencil import compile_stencil
+from tasmania_jax.domain import HorizontalBoundary, PhysicalGrid
+from tasmania_jax.dwarfs import HorizontalDiffusion, HorizontalSmoothing
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.framework.stencil import compile_stencil
 
 hyp_settings = settings(
     deadline=None,
@@ -165,7 +165,7 @@ class TestBackendEquivalenceBreadth:
         seed=st.integers(0, 2**31),
     )
     def test_hyperdiffusion_jax_vs_numpy_backend(self, dims, order, axis, seed):
-        from tasmania_tpu.dwarfs import HorizontalHyperDiffusion
+        from tasmania_jax.dwarfs import HorizontalHyperDiffusion
 
         nx, ny, nz = dims
         ext = {"first_order": 1, "second_order": 2, "third_order": 3}[order]
@@ -211,7 +211,7 @@ class TestBackendEquivalenceBreadth:
     def test_rayleigh_damping_law_drawn(self, dims, depth, coeff, dt, seed):
         """out = new − dt·r·(now − ref) in the damp region; identity below
         (reference ``rayleigh.py:88-126``)."""
-        from tasmania_tpu.dwarfs.vertical_damping import VerticalDamping
+        from tasmania_jax.dwarfs.vertical_damping import VerticalDamping
 
         nx, ny, nz = dims
         depth = min(depth, nz)
@@ -238,8 +238,8 @@ class TestBackendEquivalenceBreadth:
         """The Kessler tendencies are namespace-generic: numpy arrays in,
         numpy out; jax arrays in, jax out — identical values (reference
         backend-equivalence axis, ``kessler.py:54``)."""
-        from tasmania_tpu.domain import Domain
-        from tasmania_tpu.physics import KesslerMicrophysics
+        from tasmania_jax.domain import Domain
+        from tasmania_jax.physics import KesslerMicrophysics
 
         nx, ny, nz = dims
         domain = Domain(

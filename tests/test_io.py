@@ -9,11 +9,11 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.framework.offline_diagnostics import RMSD, RRMSD, ColumnSum
-from tasmania_tpu.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
-from tasmania_tpu.utils.iox import HDF5Monitor, load_hdf5_dataset
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.framework.offline_diagnostics import RMSD, RRMSD, ColumnSum
+from tasmania_jax.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
+from tasmania_jax.utils.iox import HDF5Monitor, load_hdf5_dataset
 
 
 def make_setup():
@@ -84,7 +84,7 @@ def test_offline_diagnostics():
 def test_netcdf_store_write_load_roundtrip():
     """True NetCDF interop (reference ``NetCDFMonitor``/``load_netcdf_dataset``,
     ``utils/iox.py:47,299``): classic CDF container via scipy."""
-    from tasmania_tpu.utils.iox import NetCDFMonitor, load_netcdf_dataset
+    from tasmania_jax.utils.iox import NetCDFMonitor, load_netcdf_dataset
 
     domain, state = make_setup()
     with tempfile.TemporaryDirectory() as tmp:
@@ -128,7 +128,7 @@ def test_netcdf4_h5_interop_load():
     ``iox.py:47`` writes HDF5-based NetCDF-4; VERDICT r4 missing #1)."""
     import h5py
 
-    from tasmania_tpu.utils.iox import load_netcdf_dataset
+    from tasmania_jax.utils.iox import load_netcdf_dataset
 
     rng = np.random.default_rng(0)
     nt, nx, ny, nz = 2, 5, 4, 3
@@ -182,7 +182,7 @@ def test_netcdf4_h5_interop_load():
 def test_netcdf3_still_loads_after_fallback_change():
     """The scipy path is untouched: a NetCDFMonitor (NetCDF-3) file still
     round-trips through the probing loader."""
-    from tasmania_tpu.utils.iox import NetCDFMonitor, load_netcdf_dataset
+    from tasmania_jax.utils.iox import NetCDFMonitor, load_netcdf_dataset
 
     domain, state = make_setup()
     with tempfile.TemporaryDirectory() as tmp:

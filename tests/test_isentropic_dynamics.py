@@ -9,9 +9,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain, PhysicalGrid
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic import (
+from tasmania_jax.domain import Domain, PhysicalGrid
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic import (
     IsentropicDiagnostics,
     IsentropicDynamicalCore,
     IsentropicMinimalHorizontalFlux,

@@ -8,11 +8,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic import get_isentropic_state_from_temperature
-from tasmania_tpu.isentropic.physics import IsentropicHorizontalDiffusion
-from tasmania_tpu.isentropic.physics.vertical_advection import PrescribedSurfaceHeating
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic import get_isentropic_state_from_temperature
+from tasmania_jax.isentropic.physics import IsentropicHorizontalDiffusion
+from tasmania_jax.isentropic.physics.vertical_advection import PrescribedSurfaceHeating
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +65,7 @@ def test_state_from_temperature_bubble(domain):
 
 
 def test_prescribed_surface_heating(domain):
-    from tasmania_tpu.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
+    from tasmania_jax.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
 
     state = get_isentropic_state_from_brunt_vaisala_frequency(
         domain.numerical_grid,
@@ -131,7 +131,7 @@ def test_horizontal_diffusion_wrapper(domain):
 # --------------------------------------------------------------------------- #
 
 from suites import BACKENDS, ComponentTestSuite, DomainSuite  # noqa: E402
-from tasmania_tpu.isentropic.physics import IsentropicConservativeCoriolis  # noqa: E402
+from tasmania_jax.isentropic.physics import IsentropicConservativeCoriolis  # noqa: E402
 
 
 class _CoriolisSuite(ComponentTestSuite):

@@ -1,9 +1,9 @@
-"""Tests for tasmania_tpu.utils.jitx (jaxpr read-set analysis)."""
+"""Tests for tasmania_jax.utils.jitx (jaxpr read-set analysis)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from tasmania_tpu.utils.jitx import carry_read_set
+from tasmania_jax.utils.jitx import carry_read_set
 
 
 def test_carry_read_set_basic():

@@ -8,8 +8,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.burgers import BurgersAdvection
-from tasmania_tpu.isentropic.dynamics.vertical_fluxes import (
+from tasmania_jax.burgers import BurgersAdvection
+from tasmania_jax.isentropic.dynamics.vertical_fluxes import (
     IsentropicMinimalVerticalFlux,
 )
 
@@ -116,7 +116,7 @@ def test_implicit_vertical_advection_driver_path(monkeypatch):
     monkeypatch.setattr(nl, "implicit_vertical_advection", True)
 
     from drivers.driver_namelist_sus import build
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.framework.field import FieldArray
 
     domain, dycore, physics, state = build(nl)
     st = {k: v for k, v in state.items() if k != "time"}
@@ -129,9 +129,9 @@ def test_implicit_vertical_advection_driver_path(monkeypatch):
 
 
 def test_hdf5_store_names_filter(tmp_path):
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.utils.iox import HDF5Monitor, load_hdf5_dataset
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.utils.iox import HDF5Monitor, load_hdf5_dataset
 
     d = Domain(
         (0.0, 1e4), 6, (0.0, 1e4), 6,

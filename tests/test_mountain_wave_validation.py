@@ -21,16 +21,16 @@ import pytest
 
 import jax
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic import (
     IsentropicDynamicalCore,
     get_isentropic_state_from_brunt_vaisala_frequency,
 )
-from tasmania_tpu.isentropic.dynamics.diagnostics import (
+from tasmania_jax.isentropic.dynamics.diagnostics import (
     IsentropicDiagnostics as DynDiag,
 )
-from tasmania_tpu.utils.meteo import get_isothermal_isentropic_analytical_solution
+from tasmania_jax.utils.meteo import get_isothermal_isentropic_analytical_solution
 
 
 def test_linear_mountain_wave_matches_analytic_solution():

@@ -1,7 +1,7 @@
-"""Multi-host scaffolding (tasmania_tpu/parallel/multihost.py).
+"""Multi-host scaffolding (tasmania_jax/parallel/multihost.py).
 
-Hardware note: one chip / one process in this container, so the DCN path can't
-be exercised for real; these tests validate the wiring — a real
+Hardware note: the multi-host path runs here as CPU processes on one machine;
+these tests validate the wiring — a real
 ``jax.distributed.initialize`` handshake (single-process cluster, in a
 subprocess) and the hybrid-mesh construction rules.
 """
@@ -14,7 +14,7 @@ import numpy as np
 
 import jax
 
-from tasmania_tpu.parallel.multihost import make_hybrid_mesh
+from tasmania_jax.parallel.multihost import make_hybrid_mesh
 
 
 def test_hybrid_mesh_single_process_matches_make_mesh():
@@ -33,7 +33,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import sys; sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from tasmania_tpu.parallel.multihost import initialize_distributed
+from tasmania_jax.parallel.multihost import initialize_distributed
 initialize_distributed("localhost:12355", num_processes=1, process_id=0)
 initialize_distributed()  # idempotent second call
 assert jax.process_count() == 1
@@ -56,8 +56,8 @@ def test_hybrid_mesh_multiprocess_layout_rule():
     shape arithmetic (the real create_hybrid_device_mesh call needs >1
     process, unavailable here — the contiguity rule is what we lock)."""
     # per_host x-extent * nproc == px is asserted inside make_hybrid_mesh;
-    # here: the single-process reduction keeps jax device order, which on a
-    # TPU slice preserves ICI adjacency (parallel/mesh.py::make_mesh)
+    # here: the single-process reduction keeps jax device order
+    # (parallel/mesh.py::make_mesh)
     mesh = make_hybrid_mesh((8, 1))
     devs = list(mesh.devices.reshape(-1))
     assert devs == jax.devices()[:8]

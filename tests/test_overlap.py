@@ -21,8 +21,8 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.parallel.halo import halo_exchange
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.parallel.halo import halo_exchange
 
 DIMS3 = ("x", "y", "z")
 
@@ -88,8 +88,8 @@ def test_interior_consumer_has_no_collective_dependency():
 def test_banded_prognostic_bitwise_equals_full_path(moist):
     """The interior/edge band split computes the same stencil arithmetic on
     sub-windows: outputs are bitwise identical to the full-window path."""
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.isentropic.dynamics.prognostic import IsentropicPrognostic
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.isentropic.dynamics.prognostic import IsentropicPrognostic
 
     nx, ny, nz = 21, 19, 4
     nb = 3

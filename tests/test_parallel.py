@@ -9,8 +9,8 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from tasmania_tpu.parallel import halo_exchange, make_mesh
-from tasmania_tpu.parallel.mesh import CartesianDecomposition, _factor_2d
+from tasmania_jax.parallel import halo_exchange, make_mesh
+from tasmania_jax.parallel.mesh import CartesianDecomposition, _factor_2d
 
 
 class TestMesh:

@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
-from tasmania_tpu.isentropic.physics import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
+from tasmania_jax.isentropic.physics import (
     IsentropicConservativeCoriolis,
     IsentropicDiagnostics,
     IsentropicImplicitVerticalAdvectionDiagnostic,
@@ -20,7 +20,7 @@ from tasmania_tpu.isentropic.physics import (
     IsentropicVelocityComponents,
     IsentropicVerticalAdvection,
 )
-from tasmania_tpu.physics import (
+from tasmania_jax.physics import (
     Clipping,
     KesslerFallVelocity,
     KesslerMicrophysics,
@@ -295,7 +295,7 @@ def test_fall_velocity_suite(backend, with_out):
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("with_out", [False, True])
 def test_dry_static_energy_suite(backend, with_out):
-    from tasmania_tpu.physics import DryStaticEnergy
+    from tasmania_jax.physics import DryStaticEnergy
 
     ds = DomainSuite(np.random.default_rng(4), backend=backend)
     suite = _DryStaticEnergySuite(
@@ -306,7 +306,7 @@ def test_dry_static_energy_suite(backend, with_out):
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_moist_static_energy_suite(backend):
-    from tasmania_tpu.physics import MoistStaticEnergy
+    from tasmania_jax.physics import MoistStaticEnergy
 
     ds = DomainSuite(np.random.default_rng(5), backend=backend)
     suite = _MoistStaticEnergySuite(ds, MoistStaticEnergy(ds.domain, "numerical"))

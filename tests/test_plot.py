@@ -11,10 +11,10 @@ matplotlib.use("Agg")
 import numpy as np
 import pytest
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
-from tasmania_tpu.plot import (
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.isentropic import get_isentropic_state_from_brunt_vaisala_frequency
+from tasmania_jax.plot import (
     CDF,
     Contour,
     Contourf,

@@ -21,9 +21,9 @@ import matplotlib.image as mpimg
 import numpy as np
 import pytest
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.plot import Contour, Contourf, LineProfile, Plot, Quiver
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework.field import FieldArray
+from tasmania_jax.plot import Contour, Contourf, LineProfile, Plot, Quiver
 
 BASELINE_DIR = Path(__file__).parent / "baseline_images"
 RMS_TOL = 5.0  # on the 0-255 scale; fonts/AA wiggle stays well below

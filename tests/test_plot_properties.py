@@ -9,7 +9,7 @@ import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
-from tasmania_tpu.plot.properties import (
+from tasmania_jax.plot.properties import (
     set_axes_properties,
     set_figure_properties,
 )
@@ -151,7 +151,7 @@ def test_unknown_keys_ignored(figax):
 
 def test_monitor_routes_properties():
     """Plot.store applies both dicts through the engine."""
-    from tasmania_tpu.plot.monitors import Plot
+    from tasmania_jax.plot.monitors import Plot
 
     class _Line:
         properties = {}
@@ -176,8 +176,8 @@ def test_monitor_routes_properties():
 
 
 def _tiny_grid():
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.framework.field import FieldArray
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.framework.field import FieldArray
 
     domain = Domain(
         (0.0, 1e4),
@@ -193,8 +193,8 @@ def _tiny_grid():
 
 
 def test_lineprofile_flat_keys(figax):
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import LineProfile
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import LineProfile
 
     fig, ax = figax
     grid = _tiny_grid()
@@ -220,8 +220,8 @@ def test_lineprofile_flat_keys(figax):
 
 
 def test_contourf_flat_keys(figax):
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import Contourf
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import Contourf
 
     fig, ax = figax
     grid = _tiny_grid()
@@ -246,8 +246,8 @@ def test_contourf_flat_keys(figax):
 
 
 def test_quiver_flat_keys(figax):
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import Quiver
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import Quiver
 
     fig, ax = figax
     grid = _tiny_grid()
@@ -269,8 +269,8 @@ def test_quiver_flat_keys(figax):
 def test_quiver_scalar_coloring_and_cbar(figax):
     """Reference make_quiver: optional scalar colors the arrows and drives a
     colorbar (``plot_utils.py`` scalar/scalar_bias/scalar_factor/cbar_*)."""
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import Quiver
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import Quiver
 
     fig, ax = figax
     grid = _tiny_grid()
@@ -294,8 +294,8 @@ def test_quiver_scalar_coloring_and_cbar(figax):
 
 
 def test_draw_vertical_levels(figax):
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import Contourf
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import Contourf
 
     fig, ax = figax
     grid = _tiny_grid()
@@ -313,7 +313,7 @@ def test_draw_vertical_levels(figax):
 
 
 def test_patch_flat_keys(figax):
-    from tasmania_tpu.plot.patches import Circle, Rectangle
+    from tasmania_jax.plot.patches import Circle, Rectangle
 
     fig, ax = figax
     Circle((0.5, 0.5), 0.2, properties={"edgecolor": "red", "linewidth": 3})(
@@ -348,8 +348,8 @@ def test_figure_reference_aliases():
 
 
 def test_cbar_ticks_pos(figax):
-    from tasmania_tpu.framework.field import FieldArray
-    from tasmania_tpu.plot.drawers import Contourf
+    from tasmania_jax.framework.field import FieldArray
+    from tasmania_jax.plot.drawers import Contourf
 
     fig, ax = figax
     grid = _tiny_grid()

@@ -20,8 +20,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from tasmania_tpu.framework.field import FieldArray
-from tasmania_tpu.parallel import make_mesh
+from tasmania_jax.parallel import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -37,43 +36,26 @@ def sus_setup():
     nl.nx = nl.ny = 32
     nl.nz = 8
 
-    from drivers.driver_namelist_sus import build
+    from drivers.driver_namelist_sus import make_step
 
-    domain, dycore, physics, state = build(nl)
+    _, state, step = make_step(nl)
     names = sorted(k for k in state if k != "time")
-    units = {k: state[k].units for k in names}
-    dims = {k: state[k].dims for k in names}
-    dt_s = nl.timestep.total_seconds()
-
-    def step(fields, hs):
-        st = {k: FieldArray(v, units[k], dims[k]) for k, v in fields.items()}
-        st["topography_height"] = FieldArray(hs, "m", ("x", "y"))
-        st = dycore(st, {}, dt_s)
-        st = physics(st, dt_s)
-        return {k: st[k].data for k in names}
 
     fields = {k: state[k].data for k in names}
     hs = jnp.zeros((32, 32), dtype=np.float32)
     return step, fields, hs, names
 
 
-def _sharding(mesh, v):
-    nd = getattr(v, "ndim", 0)
-    spec = []
-    for ax, name in zip(range(min(nd, 2)), ("x", "y")):
-        spec.append(name if v.shape[ax] % mesh.devices.shape[ax] == 0 else None)
-    spec += [None] * (nd - len(spec))
-    return NamedSharding(mesh, P(*spec))
-
-
 def test_spmd_full_sus_step_bitwise(sus_setup):
+    from drivers.driver_namelist_sus import spmd_sharding
+
     step, fields, hs, names = sus_setup
     mesh = make_mesh(jax.devices()[:8])
 
     plain = jax.jit(step)(dict(fields), hs)
     plain = jax.jit(step)(plain, hs)
 
-    fsh = {k: jax.device_put(v, _sharding(mesh, v)) for k, v in fields.items()}
+    fsh = {k: jax.device_put(v, spmd_sharding(v, mesh)) for k, v in fields.items()}
     hssh = jax.device_put(hs, NamedSharding(mesh, P("x", "y")))
     spmd = jax.jit(step)(fsh, hssh)
     spmd = jax.jit(step)(spmd, hssh)
@@ -89,7 +71,7 @@ def test_spmd_full_sus_step_bitwise(sus_setup):
 def test_staggered_diagnosis_partitions_exactly():
     """The minimal shape of the old bug: diagnose staggered u from sharded
     density+momentum, consume through a product stencil."""
-    from tasmania_tpu.dwarfs.diagnostics import HorizontalVelocity
+    from tasmania_jax.dwarfs.diagnostics import HorizontalVelocity
 
     mesh = make_mesh(jax.devices()[:8])
     sh3 = NamedSharding(mesh, P("x", "y", None))

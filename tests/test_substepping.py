@@ -10,9 +10,9 @@ from datetime import datetime, timedelta
 
 import numpy as np
 
-from tasmania_tpu.domain import Domain
-from tasmania_tpu.framework import FieldArray, TendencyComponent
-from tasmania_tpu.framework.dycore import DynamicalCore
+from tasmania_jax.domain import Domain
+from tasmania_jax.framework import FieldArray, TendencyComponent
+from tasmania_jax.framework.dycore import DynamicalCore
 
 DIMS3 = ("x", "y", "z")
 

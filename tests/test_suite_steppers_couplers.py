@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as hyp_st
 
-from tasmania_tpu.framework import (
+from tasmania_jax.framework import (
     ConcurrentCoupling,
     ParallelSplitting,
     SequentialTendencySplitting,
@@ -26,7 +26,7 @@ from tasmania_tpu.framework import (
     TendencyStepper,
     TimeIntegrationOptions,
 )
-from tasmania_tpu.framework.field import FieldArray
+from tasmania_jax.framework.field import FieldArray
 
 from strategies import st_domain, st_raw_field, st_rng
 
@@ -337,8 +337,8 @@ def _np_si_stage(s0, su0, sv0, mtg0, s_int, su_int, sv_int, u, v, dt, dx, dy, nb
 @settings(max_examples=6, deadline=None)
 @given(data=hyp_st.data())
 def test_isentropic_prognostic_vs_numpy_rederivation(scheme, fracs, data):
-    from tasmania_tpu.domain import Domain
-    from tasmania_tpu.isentropic.dynamics.prognostic import IsentropicPrognostic
+    from tasmania_jax.domain import Domain
+    from tasmania_jax.isentropic.dynamics.prognostic import IsentropicPrognostic
 
     nx = data.draw(hyp_st.integers(7, 14))
     ny = data.draw(hyp_st.integers(7, 14))

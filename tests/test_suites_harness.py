@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from tasmania_tpu.framework.core_components import DiagnosticComponent, TendencyComponent
+from tasmania_jax.framework.core_components import DiagnosticComponent, TendencyComponent
 
 from suites import ComponentTestSuite, DomainSuite
 

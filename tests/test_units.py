@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from tasmania_tpu.utils.units import (
+from tasmania_jax.utils.units import (
     conversion_factor,
     parse_units,
     per_second,

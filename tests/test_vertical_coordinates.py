@@ -5,8 +5,8 @@ from datetime import timedelta
 import numpy as np
 import pytest
 
-from tasmania_tpu.domain.grids import GalChen3d, SLEVE3d, Sigma3d
-from tasmania_tpu.framework.field import FieldArray
+from tasmania_jax.domain.grids import GalChen3d, SLEVE3d, Sigma3d
+from tasmania_jax.framework.field import FieldArray
 
 
 TOPO = {
